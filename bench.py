@@ -1,5 +1,9 @@
 """Benchmark: corrected long-read bases/sec/chip over the FULL two-pass flow.
 
+Runs on an NVIDIA GPU only: the device (platform, device_kind, count) and
+the card's name and power limit are logged on stderr, and without a GPU the
+benchmark exits with status 1 instead of timing the CPU.
+
 The driver-defined metric (BASELINE.json "metric") is corrected long-read
 bases/sec/chip for pass1+pass2: every input base is counted once, and the
 clock covers both correction passes (pass 1 at k=31, pass 2 at k=63 on the
@@ -58,6 +62,12 @@ def phase(name: str) -> None:
 def main() -> None:
     t_all = time.time()
     phase("imports")
+    from ratatosk_tpu import devinfo
+    dev = devinfo.require_gpu("bench")
+    log(f"device: platform={dev['platform']} kind={dev['kind']} "
+        f"count={dev['count']}")
+    for line in devinfo.nvidia_smi():
+        log(f"nvidia-smi name, power.limit: {line}")
     from ratatosk_tpu import dna, testing
     from ratatosk_tpu.config import CorrectOpt
     from ratatosk_tpu.correct.engine import Corrector
@@ -90,12 +100,8 @@ def main() -> None:
 
     # nb_threads=2 double-buffers host planning against device execution;
     # ~1MB read batches keep full-width region batches on the device.
-    # RTPU_PLAN_DEV=1 A/Bs the device planner against the (default) host
-    # planner on the same config (VERDICT r4 next #1c; host measured 1.6x
-    # faster on the bench chip — chip contention outweighs the kernel win).
     opt = CorrectOpt(small_k=31, k=63, beam_width=16, batch_regions=512,
-                     nb_threads=2, read_batch_bp=1 << 20,
-                     plan_on_device=os.environ.get("RTPU_PLAN_DEV") == "1")
+                     nb_threads=2, read_batch_bp=1 << 20)
     o1 = _pass_opt(opt, 1)
 
     # warm the kernel cache CONCURRENTLY with the (untimed) index build: a

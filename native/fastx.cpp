@@ -1,7 +1,7 @@
 // Native FASTA/FASTQ parser: the hot host-side data path.
 //
 // The reference streams reads through Bifrost's FileParser (SURVEY.md §2.3)
-// with ~1 MB/thread buffered chunks (Common.hpp:138). This is the TPU
+// with ~1 MB/thread buffered chunks (Common.hpp:138). This is this
 // framework's equivalent: a zlib-backed batch parser that decodes bases
 // straight to 2-bit codes (A=0,C=1,G=2,T=3, other=4) so Python never touches
 // per-base characters. Exposed via a plain C ABI for ctypes

@@ -60,7 +60,7 @@ def _add_common(p: argparse.ArgumentParser, correct_mode: bool) -> None:
         p.add_argument("-L", "--in-long-raw", action="append", default=[])
         p.add_argument("-p", "--in-short-phase", action="append", default=[])
         p.add_argument("-P", "--in-long-phase", action="append", default=[])
-    # TPU-specific knobs
+    # knobs of this implementation (no reference counterpart)
     p.add_argument("--beam-width", type=int, default=16)
     p.add_argument("--batch-regions", type=int, default=64)
     p.add_argument("--devices", type=int, default=0,
@@ -138,8 +138,8 @@ def main(argv=None) -> int:
         return 0
     ap = argparse.ArgumentParser(
         prog="ratatosk-tpu",
-        description="TPU-native hybrid error correction of long reads "
-                    "using colored de Bruijn graphs")
+        description="hybrid error correction of long reads using colored "
+                    "de Bruijn graphs, on an accelerator")
     sub = ap.add_subparsers(dest="command", required=True)
     pc = sub.add_parser("correct", help="correct long reads with short reads")
     _add_common(pc, correct_mode=True)

@@ -14,7 +14,8 @@ class CorrectOpt:
     """All tunables of the two-pass correction pipeline.
 
     Field names and defaults follow the reference (Common.hpp:101-156) so a
-    reference user can map flags 1:1; TPU-specific knobs sit at the bottom.
+    reference user can map flags 1:1; knobs of this implementation sit at
+    the bottom.
     """
 
     # -- k-mer sizes (Common.hpp:101,117: k=63, small_k=31) --
@@ -82,7 +83,7 @@ class CorrectOpt:
     pass2_only: bool = False       # -2
     index_only: bool = False       # `index` subcommand
 
-    # -- TPU-specific knobs (no reference counterpart) --
+    # -- knobs of this implementation (no reference counterpart) --
     # open (head/tail) regions have no right anchor to certify a path; accept
     # the beam's walk only when it matches the raw target this well (1 - edit
     # rate). A true correction sits near the read's error rate (~0.85-0.9);
@@ -106,6 +107,8 @@ class CorrectOpt:
     # positions is contained by exact-placement priority and the closed/open
     # region acceptance gates.
     weak_seed_stride: int = 2
+    # beam_width and batch_regions: tuned on the previous chip; not
+    # re-measured on the GPU (ROADMAP A3)
     beam_width: int = 16          # beam entries per weak region
     band_width: int = 192         # DP band for long regions (edlib-style);
                                   # regions <= 256 bp always run exact
@@ -122,12 +125,11 @@ class CorrectOpt:
     read_batch_bp: int = 1 << 20  # ~1MB of read data per host batch (Common.hpp:138)
     # run batch planning (anchor lookup + 1-edit seed probe) as async device
     # dispatches (ops/plan_device.py) instead of the native host kernels.
-    # Default OFF: the r5 A/B on the bench chip (1 Mbp genome, 5 Mbp reads,
-    # identical config) measured host 154.9k b/s vs device 96.1k — with the
-    # double-buffer the host planner runs on otherwise-idle cores, while
-    # planner kernels serialize against beam launches on the single chip
-    # (device-mode finish timers inflate 2-3x from that contention). Turn on
-    # when the host, not the chip, is the bottleneck.
+    # Default OFF: with the double-buffer the host planner runs on otherwise
+    # idle cores, while planner kernels serialize against beam launches on
+    # one device. Chosen on the previous chip; the A/B has not been re-run
+    # on the GPU (ROADMAP A1). Turn on when the host, not the device, is the
+    # bottleneck.
     plan_on_device: bool = False
     min_count_kmer: int = 2       # k-mers need >=2 occurrences from reads (Bifrost contract)
     # pass 2 skips regions whose (pass-1) quality is already maximal

@@ -1,6 +1,7 @@
 """Device beam search over the unitig graph with banded, carried DP rows.
 
-TPU-native re-expression of the reference's weak-region path enumeration
+Batched, static-shape re-expression of the reference's weak-region path
+enumeration
 (explorePathsBFS/explorePathsBFS2 + exploreSubGraph, GraphTraversal.cpp:3-720)
 and per-step SHW re-anchoring (GraphTraversal.cpp:57-62): instead of a queue
 of variable-length paths each re-aligned from scratch, a fixed-width beam
@@ -24,8 +25,9 @@ an entry at a unitig boundary branches into <=4 successors filtered by
   - |colors(successor) ∩ region colors| >= min_cov (GraphTraversal.cpp:485-489).
 All candidates are scored (alignment prefix score + color score, mirroring
 getScorePath's (align+color)/2, GraphTraversal.cpp:860) and the top `beam`
-survive — selection runs as one-hot matmuls on the MXU (middle-axis gathers
-and scatters serialize on TPU). Entries reaching the right anchor k-mer
+survive — selection runs as one-hot f32 matmuls instead of middle-axis
+gathers and scatters (a choice made for the previous accelerator and not
+re-measured on the GPU, ROADMAP A3). Entries reaching the right anchor k-mer
 freeze, capturing their NW distance; dead ends and over-length paths freeze
 capturing their prefix distance, so open regions keep their best partial path.
 
@@ -190,7 +192,7 @@ def _band_dists_from_d(dmat, cols, tgt_len):
 
 
 def _sprint_advance(g: DeviceGraph, rb: RegionBatch, padded_tgt,
-                    st: BeamState, rec, smax: int, impl: str = "auto"):
+                    st: BeamState, rec, smax: int):
     """Advance each region by up to smax-1 deterministic mid-unitig bases.
 
     Between branch points every live entry's next base is determined by its
@@ -200,7 +202,7 @@ def _sprint_advance(g: DeviceGraph, rb: RegionBatch, padded_tgt,
     capped so no event (unitig boundary, right-anchor arrival, path-budget
     freeze) can occur inside the sprint: s_r-1 bases advance here, and the
     following branch step emits base s_r and handles the event. This is the
-    TPU answer to the reference's per-base DFS stack walk
+    batched answer to the reference's per-base DFS stack walk
     (exploreSubGraph, GraphTraversal.cpp:456-720): the graph walk stays
     per-base, but all deterministic stretches collapse into vectorized
     multi-row band-DP updates.
@@ -233,7 +235,6 @@ def _sprint_advance(g: DeviceGraph, rb: RegionBatch, padded_tgt,
     has_live = live.any(axis=1)
     m_reg = jnp.clip(jnp.where(has_live, jnp.min(s_ent, axis=1) - 1, 0),
                      0, smax - 1)                           # [R] sprint bases
-    m_max = jnp.max(m_reg)
 
     # pre-gather the next smax-1 oriented bases per entry (a contiguous run
     # on the unitig) and the target-mask columns the windows will expose —
@@ -253,40 +254,39 @@ def _sprint_advance(g: DeviceGraph, rb: RegionBatch, padded_tgt,
         jnp.broadcast_to(padded_tgt, (R, nt1)), fetch_j, axis=1
     ).astype(st.btgt.dtype)                                    # [R, smax-1]
 
-    if impl == "auto":
-        # measured on the bench chip (r4): at the 256-bucket shape the
-        # Pallas sprint is SLOWER than the fused XLA path (49 vs 43
-        # ms/launch) and one shape took minutes to compile, so XLA is the
-        # default everywhere until the kernel earns its place with a
-        # recorded A/B win (opt-in via sprint_impl="pallas")
-        impl = "xla"
-    if impl.startswith("pallas"):
-        # fused VMEM-resident inner loop (ops/sprint_pallas.py): the whole
-        # sprint costs one HBM read+write of the band state instead of ~8
-        # materialized [R,B,W] passes per substep
-        from ratatosk_tpu.ops.sprint_pallas import sprint_rows
-        livem = live.astype(jnp.int32)
-        rwin_n, btgt_n = sprint_rows(
-            st.rwin, st.btgt.astype(jnp.int32), nb_all,
-            newcols.astype(jnp.int32), wsall, m_reg, livem, st.plen,
-            smax=smax, interpret=impl == "pallas_interpret")
-        adv_n = livem * m_reg[:, None]
-        jmask = (j_i[None, None, :] < m_reg[:, None, None]) & live[..., None]
-        sbits = jnp.where(jmask, nb_all << (2 * j_i), 0).sum(axis=-1)
-        scnt = jnp.where(live, m_reg[:, None], 0).astype(jnp.int32)
-        return (st._replace(rwin=rwin_n, btgt=btgt_n.astype(st.btgt.dtype),
-                            off=st.off + adv_n, plen=st.plen + adv_n,
-                            pcount=st.pcount + m_reg),
-                sbits.astype(jnp.int32), scnt)
+    with jax.named_scope("beam_sprint"):
+        rwin, btgt = sprint_rows(st.rwin, st.btgt, nb_all, newcols, wsall,
+                                 m_reg, live, st.plen)
+    adv = jnp.where(live, m_reg[:, None], 0).astype(jnp.int32)   # [R, B]
+    jmask = (j_i[None, None, :] < m_reg[:, None, None]) & live[..., None]
+    sbits = jnp.where(jmask, nb_all << (2 * j_i), 0).sum(axis=-1)
+    return (st._replace(rwin=rwin, btgt=btgt, off=st.off + adv,
+                        plen=st.plen + adv, pcount=st.pcount + m_reg),
+            sbits.astype(jnp.int32), adv)
 
+
+def sprint_rows(rwin, btgt, nb_all, newcols, wsall, m_reg, live, plen):
+    """Band-state evolution of a sprint: m_reg[r] one-base DP row updates.
+
+    rwin [R, B, W] carried rows at window wsall[:, 0]; btgt [R, W] target
+    masks of that window; nb_all [R, B, smax-1] the bases each entry emits;
+    newcols [R, smax-1] the target column each window shift exposes; wsall
+    [R, smax] window starts at path lengths pcount..pcount+smax-1; live
+    [R, B] entries that advance; plen [R, B] their path lengths. Substep j
+    (j < m_reg[r]) moves region r's window from wsall[r, j] to
+    wsall[r, j+1] and extends every live row by base nb_all[..., j].
+    Returns (rwin', btgt')."""
+    W = rwin.shape[-1]
     cols0 = jnp.arange(W, dtype=jnp.int32)[None, :]
 
     def body(j, carry):
-        rwin, btgt, off, plen, pcount, sbits = carry
+        rwin, btgt = carry
         adv_r = j < m_reg                                      # [R]
         adv = live & adv_r[:, None]                            # [R, B]
-        ws_cur = _window_start(pcount, rb.tgt_len, nt1, W)
-        ws_nxt = _window_start(pcount + 1, rb.tgt_len, nt1, W)
+        ws_cur = jax.lax.dynamic_index_in_dim(wsall, j, axis=1,
+                                              keepdims=False)
+        ws_nxt = jax.lax.dynamic_index_in_dim(wsall, j + 1, axis=1,
+                                              keepdims=False)
         delta = (ws_nxt - ws_cur)[:, None]                     # [R, 1]
         newcol = jax.lax.dynamic_slice_in_dim(newcols, j, 1, axis=1)
         shifted = jnp.concatenate([btgt[:, 1:], newcol], axis=1)
@@ -299,27 +299,19 @@ def _sprint_advance(g: DeviceGraph, rb: RegionBatch, padded_tgt,
             [jnp.full_like(rwin[..., :1], BIG), rwin[..., :-1]], axis=-1)
         prev_j = jnp.where(delta3 == 1, shiftL, rwin)
         prev_jm1 = jnp.where(delta3 == 1, rwin, shiftR)
-        base = jax.lax.dynamic_slice_in_dim(nb_all, j, 1, axis=2)[..., 0]
+        base = jax.lax.dynamic_index_in_dim(nb_all, j, axis=2,
+                                            keepdims=False)
         cols = ws_nxt[:, None] + cols0                         # [R, W]
         sub = (((jnp.int32(1) << base)[..., None]
                 & btgt_n[:, None, :].astype(jnp.int32)) == 0).astype(jnp.int32)
         dd = jnp.minimum(prev_jm1 + sub, prev_j + 1)
-        dd = jnp.where(cols[:, None, :] == 0, (plen + 1)[..., None], dd)
+        dd = jnp.where(cols[:, None, :] == 0, (plen + j + 1)[..., None], dd)
         dd = jnp.minimum(dd, BIG)
         ee = cols[:, None, :] + jax.lax.cummin(dd - cols[:, None, :], axis=2)
         ee = jnp.minimum(ee, BIG)
-        return (jnp.where(adv[..., None], ee, rwin), btgt_n,
-                off + adv.astype(jnp.int32), plen + adv.astype(jnp.int32),
-                pcount + adv_r.astype(jnp.int32),
-                jnp.where(adv, sbits | (base << (2 * j)), sbits))
+        return jnp.where(adv[..., None], ee, rwin), btgt_n
 
-    rwin, btgt, off, plen, pcount, sbits = jax.lax.fori_loop(
-        0, m_max, body,
-        (st.rwin, st.btgt, st.off, st.plen, st.pcount, zero_bits))
-    scnt = jnp.where(live, m_reg[:, None], 0).astype(jnp.int32)
-    return (st._replace(rwin=rwin, btgt=btgt, off=off, plen=plen,
-                        pcount=pcount),
-            sbits, scnt)
+    return jax.lax.fori_loop(0, jnp.max(m_reg), body, (rwin, btgt))
 
 
 def _beam_step(g: DeviceGraph, rb: RegionBatch, padded_tgt, st: BeamState, i,
@@ -393,8 +385,9 @@ def _beam_step(g: DeviceGraph, rb: RegionBatch, padded_tgt, st: BeamState, i,
     delta = (ws_next - ws)[:, None, None]                    # [R,1,1]
     cols = ws_next[:, None] + jnp.arange(W, dtype=jnp.int32)[None, :]  # [R,W]
     # advance the carried target window: fetch only the newly-exposed column.
-    # The fetch is a one-hot compare-and-reduce, not a gather — per-row
-    # dynamic gathers have a large fixed cost per step on TPU.
+    # The fetch is a one-hot compare-and-reduce, not a gather: per-row
+    # dynamic gathers had a large fixed cost per step on the previous
+    # accelerator (not re-measured on the GPU, ROADMAP A3).
     fetch = jnp.minimum(ws_next + (W - 1), nt1 - 1)[:, None]          # [R,1]
     jcol = jax.lax.broadcasted_iota(jnp.int32, padded_tgt.shape, 1)
     newcol = jnp.sum(jnp.where(jcol == fetch, padded_tgt, 0),
@@ -476,10 +469,11 @@ def _beam_step(g: DeviceGraph, rb: RegionBatch, padded_tgt, st: BeamState, i,
     score = 0.5 * jnp.clip(align, -1.0, 1.0) + 0.5 * color
     score = jnp.where(valid, score, NEG)
 
-    # --- top-`beam` selection as one-hot matmuls (MXU) ---
-    # lax.top_k lowers to a serialized sort (~1.3ms/step at R=512, 93% of the
-    # step); rank-by-pairwise-comparison is pure VPU: rank[c] = #candidates
+    # --- top-`beam` selection as one-hot matmuls ---
+    # lax.top_k lowered to a serialized sort on the previous accelerator;
+    # rank-by-pairwise-comparison is elementwise work: rank[c] = #candidates
     # strictly better (ties broken by slot index), P[b, c] = (rank[c] == b).
+    # Tuned on the previous chip; not re-measured on the GPU (ROADMAP A3).
     fscore = score.reshape(R, C)
     sgt = fscore[:, :, None] > fscore[:, None, :]            # [R, C', C]
     seq_tie = (fscore[:, :, None] == fscore[:, None, :]) & (
@@ -512,11 +506,11 @@ def _beam_step(g: DeviceGraph, rb: RegionBatch, padded_tgt, st: BeamState, i,
         cand_scnt.astype(jnp.float32),
     ], axis=-1).reshape(R, C, 16)
     # precision=HIGHEST is LOAD-BEARING on every einsum that moves integer
-    # state: TPU matmuls default to bf16 multiplication, which silently
-    # rounds any value > 256 (off 1113 -> 1112, plen 257 -> 256). A rounded
-    # plen freezes a path's progress without freezing the entry — an
-    # immortal zombie that keeps the while_loop from ever exiting early.
-    # f32 (HIGHEST) is exact for every field here (all < 2^24).
+    # state: GPU f32 matmuls default to TF32, whose 10-bit mantissa silently
+    # rounds any integer above 2048 (off 4097 -> 4096, plen 2049 -> 2048).
+    # A rounded plen freezes a path's progress without freezing the entry —
+    # an immortal zombie that keeps the while_loop from ever exiting early.
+    # True f32 (HIGHEST) is exact for every field here (all < 2^24).
     HI = jax.lax.Precision.HIGHEST
     selected = jnp.einsum("rbc,rcf->rbf", P, scalars, precision=HI,
                           preferred_element_type=jnp.float32)
@@ -603,8 +597,8 @@ def _beam_step(g: DeviceGraph, rb: RegionBatch, padded_tgt, st: BeamState, i,
     # --- rebuild the winners' DP rows (prefix-min scan on B rows only) ---
     # gather each winner's parent row, then redo the one-row update for the
     # selected base; non-emitting winners keep the parent row verbatim
-    # DP row values reach BIG=2^20: bf16 would quantize them (multiples of
-    # 4096 up there) and corrupt every carried row — HIGHEST is required
+    # DP row values reach BIG=2^20: TF32 would quantize them (multiples of
+    # 512 up there) and corrupt every carried row — HIGHEST is required
     rwin_par = jnp.einsum("rbp,rpw->rbw", Pp, st.rwin.astype(jnp.float32),
                           precision=HI,
                           preferred_element_type=jnp.float32).astype(jnp.int32)
@@ -642,10 +636,10 @@ def _beam_step(g: DeviceGraph, rb: RegionBatch, padded_tgt, st: BeamState, i,
 
 @functools.partial(jax.jit,
                    static_argnames=("beam", "lmax", "min_cov", "band",
-                                    "sprint", "sprint_impl"))
+                                    "sprint"))
 def beam_search(g: DeviceGraph, rb: RegionBatch, *, beam: int, lmax: int,
                 min_cov: int = 2, band: int = 0,
-                sprint: int = 8, sprint_impl: str = "auto") -> BeamResult:
+                sprint: int = 8) -> BeamResult:
     """band=0 (or >= NT+1) means exact full-row DP; otherwise a W-wide band.
 
     sprint: max bases an outer step advances per region (1 branch step plus
@@ -698,10 +692,10 @@ def beam_search(g: DeviceGraph, rb: RegionBatch, *, beam: int, lmax: int,
         i, s = carry
         uid = jnp.maximum(s.tip >> 1, 0)
         rec = g.utbl[uid, s.tip & 1]       # [R, B, 6] (shared by both phases)
-        s, sbits, scnt = _sprint_advance(g, rb, padded_tgt, s, rec, sprint,
-                                         impl=sprint_impl)
-        return i + 1, _beam_step(g, rb, padded_tgt, s, i, min_cov, rec,
-                                 sbits, scnt)
+        s, sbits, scnt = _sprint_advance(g, rb, padded_tgt, s, rec, sprint)
+        with jax.named_scope("beam_step"):
+            s = _beam_step(g, rb, padded_tgt, s, i, min_cov, rec, sbits, scnt)
+        return i + 1, s
 
     T, st = jax.lax.while_loop(cond, body, (jnp.int32(0), st))
 

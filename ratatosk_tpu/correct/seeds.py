@@ -375,7 +375,7 @@ def find_weak_seeds_batch(cdbg: Cdbg, reads, spans, *, subs: bool = True,
                           max_hits_per_pos: int = 1) -> List[List[SolidRun]]:
     """Inexact (1-edit) seeds for many read spans in ONE index probe.
 
-    TPU-native re-expression of the reference's masked inexact re-search
+    Vectorized re-expression of the reference's masked inexact re-search
     (getSeeds, Graph.cpp:100-196 builds l_s and calls
     searchSequence(l_s, false, true, true, true, true)): all spans of a batch
     are concatenated (separated by an invalid base so no window crosses a

@@ -7,7 +7,7 @@ the long-read graph but not in the short-read set — i.e. the locus exists in
 the long reads but short-read mapping dropped it. Missing reads are appended
 to the short-read input before index construction (Ratatosk.cpp:1040-1056).
 
-TPU-native: both memberships are sorted-key lookups (ops/kmer_index.py-style
+Vectorized: both memberships are sorted-key lookups (ops/kmer_index.py-style
 arrays) instead of Bloom filters — exact, vectorized, and reusing the
 counting pipeline.
 """

@@ -7,7 +7,7 @@ validated by color-compatible neighborhoods in both directions
 (isValidSNPcandidate, GraphTraversal.cpp:1057-1147) before the site is stored
 as a (pos, IUPAC mask) annotation (UnitigData.hpp:448-451).
 
-TPU-native shape: instead of a per-unitig searchSequence loop, ALL unitig
+Batched shape: instead of a per-unitig searchSequence loop, ALL unitig
 sequences are concatenated and probed in ONE batched 1-edit pass (the same
 native/vectorized variant machinery as the weak-seed probe,
 correct/seeds.py), and validation caches one read-supported, color-consistent

@@ -7,15 +7,13 @@ back to the pure-Python parser (io/fastx.py) if no toolchain is available.
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
 from typing import Iterator, Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libfastx.so")
+from ratatosk_tpu import nativebuild
+
 _lib = None
 _lib_failed = False
 
@@ -24,13 +22,8 @@ def _load() -> Optional[ctypes.CDLL]:
     global _lib, _lib_failed
     if _lib is not None or _lib_failed:
         return _lib
-    src = os.path.join(_NATIVE_DIR, "fastx.cpp")
     try:
-        if (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)):
-            subprocess.run(["sh", os.path.join(_NATIVE_DIR, "build.sh")],
-                           check=True, capture_output=True)
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(nativebuild.ensure_built("fastx"))
         lib.fx_open.restype = ctypes.c_void_p
         lib.fx_open.argtypes = [ctypes.c_char_p]
         lib.fx_next_batch.restype = ctypes.c_int64

@@ -1,4 +1,4 @@
-"""Batched edit-distance DP: the TPU replacement for edlib.
+"""Batched edit-distance DP: the device replacement for edlib.
 
 Semantics follow edlib (reference src/edlib.h:36-62), the inner engine behind
 ~30 call sites in the reference's L3-L5 (SURVEY.md §2.2(6)):
@@ -12,7 +12,7 @@ Formulation (ARCHITECTURE.md §5): the within-row dependence of
 dissolves into a prefix-min scan:
   D[j]    = min(E[i-1][j-1]+sub_j, E[i-1][j]+1),  D[0] = i+1
   E[i][j] = j + cummin_{l<=j}(D[l] - l)
-One `jax.lax.cummin` per query base, batched over pairs — VPU-shaped, no
+One `jax.lax.cummin` per query base, batched over pairs — elementwise, no
 bit-parallel tricks needed. IUPAC ambiguity (the 28-pair equality table,
 reference src/Common.hpp:262-276) costs one AND: sequences are 4-bit base
 masks (dna.py) and sub_j = ((mask_a & mask_b) == 0).

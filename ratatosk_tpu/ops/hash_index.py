@@ -2,7 +2,7 @@
 canonicalization.
 
 The sorted-array binary search (ops/kmer_index.py) costs ~2*log2(N) device
-gathers per query — gather-bound on TPU. And canonicalizing each query first
+gathers per query — gather-bound on the device. And canonicalizing each query first
 costs a reverse-complement + select in emulated uint64 arithmetic — the
 dominant VECTOR cost when probing hundreds of 1-edit variants per window
 (ops/plan_device.py). This module removes both:

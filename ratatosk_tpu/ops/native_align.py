@@ -17,9 +17,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libralign.so")
+from ratatosk_tpu import nativebuild
+
 _lib = None
 _lib_failed = False
 
@@ -33,14 +32,8 @@ def _load():
     global _lib, _lib_failed
     if _lib is not None or _lib_failed:
         return _lib
-    src = os.path.join(_NATIVE_DIR, "align.cpp")
     try:
-        if (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)):
-            subprocess.run(
-                ["sh", os.path.join(_NATIVE_DIR, "build.sh"), "align"],
-                check=True, capture_output=True)
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(nativebuild.ensure_built("align"))
         lib.aln_one.restype = ctypes.c_int32
         lib.aln_one.argtypes = [
             _U8P, ctypes.c_int32, _U8P, ctypes.c_int32, ctypes.c_int32,

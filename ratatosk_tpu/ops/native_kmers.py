@@ -17,9 +17,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libkmers.so")
+from ratatosk_tpu import nativebuild
+
 _lib = None
 _lib_failed = False
 
@@ -40,14 +39,8 @@ def _load():
     if os.environ.get("RATATOSK_NO_NATIVE"):
         _lib_failed = True
         return None
-    src = os.path.join(_NATIVE_DIR, "kmers.cpp")
     try:
-        if (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)):
-            subprocess.run(
-                ["sh", os.path.join(_NATIVE_DIR, "build.sh"), "kmers"],
-                check=True, capture_output=True)
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(nativebuild.ensure_built("kmers"))
         lib.rt_canonical.restype = None
         lib.rt_canonical.argtypes = [
             _U8P, ctypes.c_int64, ctypes.c_int32,

@@ -1,10 +1,8 @@
-"""Device-side batch planning: exact-anchor runs + 1-edit seed probe on TPU.
+"""Device-side batch planning: exact-anchor runs + 1-edit seed probe.
 
-Round-3 profiling put the host planner at ~60% of the correction wall on a
-2-core host: native find_runs lookups (~0.6-0.8s/2Mbp batch) and the 1-edit
-seed probe (~2-3.4s/batch) dominate. Both are index lookups — exactly the
-work the north star assigns to the device ("Pallas kernels for hashing /
-lookup"). This module runs them as TWO asynchronous device dispatches per
+On a host with few cores the host planner dominates the correction wall:
+native find_runs lookups and the 1-edit seed probe. Both are index lookups,
+so this module runs them as TWO asynchronous device dispatches per
 read batch against the two-orientation hash-directory index
 (ops/hash_index.py):
 
@@ -15,8 +13,8 @@ read batch against the two-orientation hash-directory index
   on device so the download is O(runs), not O(L).
 - `probe kernel`: the reference's masked inexact re-search
   (Graph.cpp:100-196 -> searchSequence with 1 substitution/indel), in three
-  phases sized so gather count — the TPU's scarce resource here — stays
-  near its floor:
+  phases sized so gather count — the scarce resource here on the previous
+  chip — stays near its floor:
     exact: probe every window, derive the near-exact skip mask on device;
     A: compact the allowed window positions, then lax.scan over edit
        positions generating each 1-edit variant key by traced 128-bit
@@ -63,9 +61,9 @@ def _pad_tier(n: int, lo: int = 1 << 16) -> int:
 def _compact_i32(mask, size: int, fill: int):
     """Positions of set bits, compacted to [size] (ascending, `fill` padded).
 
-    jnp.nonzero(size=...) under jax_enable_x64 runs an i64 cumsum whose
-    emulated u32-pair reduce-window blows the TPU's scoped VMEM; this i32
-    formulation compiles cleanly.
+    jnp.nonzero(size=...) under jax_enable_x64 runs an i64 cumsum, which
+    the previous chip could only emulate with u32 pairs (and failed to
+    compile); this i32 formulation is cheaper on any device.
     """
     idx = jnp.cumsum(mask.astype(jnp.int32)) - 1
     pos = jax.lax.broadcasted_iota(jnp.int32, mask.shape, 0)
@@ -351,11 +349,11 @@ class DevicePlanner:
     @staticmethod
     def _qcap(L: int) -> int:
         # bounds each (kind, side)'s half-filter-qualifying positions.
-        # Measured on the bench chip (scripts/probe_stats.py, 1 Mbp of 10%-
-        # error reads probed END TO END — a strict upper bound on production
-        # spans): nq_max = L/19 (k=31), L/57 (k=63), and per-batch probe time
-        # scales ~linearly with the cap (L//6: 1271/3598 ms, L//12: 733/1854
-        # ms at k=31/63). L//12 keeps >=1.6x headroom over the worst case;
+        # Counted with scripts/probe_stats.py (1 Mbp of 10%-error reads
+        # probed END TO END — a strict upper bound on production spans):
+        # nq_max = L/19 (k=31), L/57 (k=63); per-batch probe time scales
+        # ~linearly with the cap. L//12 keeps >=1.6x headroom over the worst
+        # case;
         # overflow -> host fallback for that batch only (no recompile: the
         # cap is a function of L alone).
         return min(L // 12 + 4096, L)

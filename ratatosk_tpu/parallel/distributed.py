@@ -1,4 +1,4 @@
-"""Multi-host distribution: the Nextflow scatter/gather layer, TPU-native.
+"""Multi-host distribution: the Nextflow scatter/gather layer, on JAX.
 
 The reference scales across nodes by splitting the long-read FASTQ into ~50
 chunks, replicating the index to every node, correcting chunks independently,
@@ -87,7 +87,7 @@ def allgather_bytes(buf: bytes, max_total: int = 1 << 31):
     """All-gather one byte payload per host over the device collective
     (process order). Returns the list of payloads, or None when the gathered
     total would exceed max_total (callers fall back to the shared
-    filesystem). This is the TPU-native transport for the pass-1 -> pass-2
+    filesystem). This is the device-collective transport for the pass-1 -> pass-2
     corrected-read hand-off (SURVEY.md §5: the reference ships `.2.fastq`
     through the filesystem, Ratatosk.cpp:1189-1194)."""
     import jax

@@ -2,11 +2,12 @@
 
 The reference scales by chunk-scattering long reads across SLURM nodes with
 the index replicated per node (Ratatosk_nf/Ratatosk.nf:5-59,280; SURVEY.md
-§2.4). TPU-native equivalent: a `jax.sharding.Mesh` with a `data` axis —
-weak-region batches shard across it, the DeviceGraph replicates — and XLA
-inserts any collectives. A sharded-index mode (index split over a `model`
-axis + all_gather lookups) is the round-2+ path for genomes whose index
-exceeds one chip's HBM.
+§2.4). JAX equivalent: a flat `jax.sharding.Mesh` with one `data` axis over
+the local devices — weak-region batches shard across it, the DeviceGraph
+replicates — and XLA inserts any collectives. A flat axis suits GPUs joined
+all to all by NVLink: no device pair is closer than another. For indexes
+that exceed one device's memory, parallel/sharded_index.py range-partitions
+the k-mer index over the same axis.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The replicated index (parallel/mesh.py) matches the reference's
 index-per-node semantics (Ratatosk.nf:280). For genomes whose index exceeds
-one chip's HBM (the reference needs a 448 GB node for human, BASELINE.md),
+one device's memory (the reference needs a 448 GB node for human, BASELINE.md),
 the sorted canonical-key array is *range-partitioned*: device i holds keys in
 [split[i], split[i+1]). A batched lookup runs under shard_map: every device
 binary-searches the full (replicated) query batch against its local shard —
@@ -13,7 +13,7 @@ reference's "replicate index to every node" scaled past one node's memory.
 
 Both key widths shard: k<=32 (one uint64 word) and 32<k<=64 (two words,
 ordered by (hi, lo) — the pass-2 k=63 index, the one that actually outgrows
-HBM, partitions the same way).
+device memory, partitions the same way).
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ratatosk_tpu.ops.kmer_index import KmerIndex
 
@@ -73,8 +72,10 @@ class ShardedKmerIndex:
             kh = keys_hi[0] if two else None
             steps = max(1, int(np.ceil(np.log2(per + 1))))
             # carries become axis-varying once they touch the local shard
-            lo = jax.lax.pvary(jnp.zeros(q_lo.shape, jnp.int32), (axis,))
-            hi = jax.lax.pvary(jnp.full(q_lo.shape, per, jnp.int32), (axis,))
+            lo = jax.lax.pcast(jnp.zeros(q_lo.shape, jnp.int32), (axis,),
+                               to="varying")
+            hi = jax.lax.pcast(jnp.full(q_lo.shape, per, jnp.int32), (axis,),
+                               to="varying")
 
             def body(_, lh):
                 lo, hi = lh
@@ -99,7 +100,7 @@ class ShardedKmerIndex:
                     jax.lax.pmax(hit_pos, axis),
                     jax.lax.pmax(hit_strand, axis))
 
-        fn = shard_map(
+        fn = jax.shard_map(
             local, mesh=mesh,
             in_specs=(P(axis, None), P(axis, None), P(axis, None),
                       P(axis, None), P(axis, None), P(), P()),

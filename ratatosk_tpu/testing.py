@@ -41,6 +41,31 @@ def short_reads(rng, genome: np.ndarray, coverage: float,
     return out
 
 
+def short_read_matrix(rng, genome: np.ndarray, coverage: float,
+                      read_len: int = 120, holes=(),
+                      chunk: int = 1 << 19) -> np.ndarray:
+    """Vectorized error-free short reads [n, read_len], random strand.
+
+    holes: (start, end) genome spans no read overlaps — short-read coverage
+    dropouts (e.g. GC-extreme loci) that the graph cannot bridge. Sampled
+    in chunks so the gather index stays small at Gbp scale."""
+    n = int(len(genome) * coverage / read_len)
+    out = np.empty((n, read_len), np.uint8)
+    off = np.arange(read_len)[None, :]
+    got = 0
+    while got < n:
+        m = min(chunk, n - got)
+        starts = rng.integers(0, len(genome) - read_len + 1, size=m)
+        for a, b in holes:
+            starts = starts[(starts + read_len <= a) | (starts >= b)]
+        arr = genome[starts[:, None] + off]
+        flip = rng.random(len(starts)) < 0.5
+        arr[flip] = (3 - arr[flip])[:, ::-1]
+        out[got:got + len(starts)] = arr
+        got += len(starts)
+    return out
+
+
 def noisy_read(rng, genome: np.ndarray, start: int, length: int,
                err: float, mix=(0.5, 0.25, 0.25)
                ) -> Tuple[np.ndarray, np.ndarray]:

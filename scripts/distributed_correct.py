@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Multi-host correction launcher — the Nextflow pipeline's role
-(Ratatosk_nf/Ratatosk.nf), TPU-native.
+(Ratatosk_nf/Ratatosk.nf), on jax.distributed.
 
 Every host runs this same script with its process id; inputs are chunk-
 scattered across hosts, the index is built (or loaded) per host, outputs are

@@ -1,14 +1,14 @@
-"""Chromosome-scale single-chip run (VERDICT r4 next #3 / BASELINE configs[3]).
+"""Chromosome-scale single-device run (BASELINE configs[3]).
 
 Simulates a human-chr20-sized genome (default 60 Mbp), 40x short reads
 (2.4 Gbp) and ONT-like long reads, then drives the FULL production two-pass
-pipeline on the real chip, recording what the 4 Mbp bench cannot show:
+pipeline on the accelerator, recording what the 4 Mbp bench cannot show:
 index-build time at scale (bucketed native counting path), peak RSS,
 correction throughput, and residual error vs ground truth.
 
 Usage: python scripts/scale_run.py [genome_bp] [n_long_reads] [out.json]
 Writes one JSON line to stdout and the same object to out.json
-(default SCALE_r05.json at the repo root).
+(default scale_run.json in the working directory).
 """
 from __future__ import annotations
 
@@ -31,30 +31,10 @@ def rss_gb():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
 
 
-def fast_short_reads(rng, genome, coverage=40.0, read_len=100,
-                     chunk=1 << 19):
-    """Vectorized uniform sampler (testing.short_reads is a per-read python
-    loop — minutes at 2.4 Gbp). Chunked so the gather index array stays
-    ~400 MB instead of size-of-dataset x8."""
-    n = int(len(genome) * coverage / read_len)
-    out = []
-    off = np.arange(read_len)[None, :]
-    for a in range(0, n, chunk):
-        m = min(chunk, n - a)
-        starts = rng.integers(0, len(genome) - read_len + 1, size=m)
-        arr = genome[starts[:, None] + off]
-        flip = rng.random(m) < 0.5
-        arr[flip] = (3 - arr[flip])[:, ::-1]
-        out.extend(list(np.ascontiguousarray(arr)))
-    return out
-
-
 def main():
     glen = int(float(sys.argv[1])) if len(sys.argv) > 1 else 60_000_000
     n_lr = int(sys.argv[2]) if len(sys.argv) > 2 else 25_000
-    out_path = sys.argv[3] if len(sys.argv) > 3 else os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "SCALE_r05.json")
+    out_path = sys.argv[3] if len(sys.argv) > 3 else "scale_run.json"
     read_len = 4000
     phases = {}
 
@@ -77,7 +57,7 @@ def main():
         f"{n_lr} x {read_len}bp long reads")
     genome = testing.random_genome(rng, glen, repeat_frac=0.10,
                                    repeat_len=300)
-    sreads = fast_short_reads(rng, genome, coverage=40.0)
+    sreads = list(testing.short_read_matrix(rng, genome, 40.0, read_len=100))
     phase("simulate_sr", t0)
 
     t0 = time.time()
